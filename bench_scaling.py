@@ -5,13 +5,14 @@ place recognition are the distributed components).
 Runs the point-sharded Schur BA (parallel/sharded_ba.py), the edge-sharded
 pose graph (parallel/sharded_pose_graph.py), and the row-sharded BoW query
 (parallel/sharded_bow.py) on synthetic full-map problems across mesh sizes
-and reports per-iteration time and strong-scaling efficiency. On a real
-multi-chip/multi-host slice the mesh axes ride ICI/DCN; on this
-single-chip container the multi-device numbers come from the virtual CPU
-mesh (correctness + collective-structure check, not a hardware scaling
-measurement — run on a pod slice for real numbers).
+and reports per-iteration time and strong-scaling efficiency. The meshes
+are 1-D over the first n devices; on several GPUs of one host every pair
+of cards is joined by NVLink at the same rate, so the mesh follows the
+algorithm alone. With --cpu the devices are a virtual CPU mesh: a
+correctness and collective-structure check, not a hardware scaling
+measurement. Without --cpu it fails when JAX finds no GPU.
 
-Prints one JSON line.
+Prints one JSON line naming the platform, device kind and device count.
 """
 
 import json
@@ -27,10 +28,11 @@ def main():
         os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
     import jax
 
-    if force_cpu:
-        jax.config.update("jax_platforms", "cpu")
-    os.makedirs("/root/.cache/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jaxcache")
+    from orbslam2_tpu.utils import compile_cache, device
+
+    if not force_cpu:
+        device.require_gpu()
+    compile_cache.enable()
 
     import jax.numpy as jnp
     import numpy as np
@@ -214,8 +216,8 @@ def main():
                         " psum per CG step) and is what a shared-socket"
                         " VIRTUAL mesh rewards; 'gathered' issues ONE"
                         " all_gather per GN iteration with replicated CG"
-                        " and is the ICI design (collective latency, not"
-                        " compute, bounds a real pod)",
+                        " and suits real devices, where collective"
+                        " latency, not compute, is the bound",
                 **{
                     mode: {
                         "per_mesh_ms": {str(n): round(v * 1e3, 2)
@@ -230,8 +232,7 @@ def main():
                 "per_mesh_ms": {str(n): round(v * 1e3, 3) for n, v in bow_results.items()},
                 "strong_scaling_efficiency": bow_eff,
             },
-            "devices": [str(d) for d in jax.devices()[:2]],
-            "note": "virtual CPU mesh unless run on a pod slice",
+            "device": device.device_info(),
         },
     }))
 

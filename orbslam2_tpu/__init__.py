@@ -1,10 +1,10 @@
-"""orbslam2_tpu — a TPU-native visual SLAM engine (ORB-SLAM2-class).
+"""orbslam2_tpu — a visual SLAM engine (ORB-SLAM2-class) in JAX.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the capabilities of
-ORB-SLAM2 (reference: Hello-Water/ORB-SLAM2-ChineseNotes): monocular,
-stereo and RGB-D feature-based SLAM with ORB extraction, covisibility
-mapping, place recognition, relocalization, loop closing and bundle
-adjustment — redesigned TPU-first:
+A from-scratch JAX reimplementation of the capabilities of ORB-SLAM2
+(reference: Hello-Water/ORB-SLAM2-ChineseNotes): monocular, stereo and
+RGB-D feature-based SLAM with ORB extraction, covisibility mapping, place
+recognition, relocalization, loop closing and bundle adjustment — built
+for an accelerator (it runs on an NVIDIA GPU) rather than translated:
 
 * dense, batched, fixed-shape kernels instead of per-feature loops;
 * a device-resident struct-of-arrays map pytree instead of a

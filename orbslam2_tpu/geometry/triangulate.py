@@ -3,9 +3,8 @@
 Replaces the reference's per-point 4x4 SVD (`Initializer::Triangulate`,
 reference src/Initializer.cc:804-818; also used in
 `LocalMapping::CreateNewMapPoints`, src/LocalMapping.cc:355-370) with one
-batched linear solve over all candidate matches at once — the TPU-idiomatic
-shape is [N, 4, 4] batched eigendecomposition instead of N tiny SVDs in a
-loop.
+batched linear solve over all candidate matches at once instead of N tiny
+SVDs in a loop.
 """
 
 from __future__ import annotations
@@ -37,10 +36,9 @@ def triangulate_dlt(
 
     The 4x4 homogeneous system A x = 0 is solved INHOMOGENEOUSLY (w = 1):
     minimize |B p + c|^2 with B = A[:, :3], c = A[:, 3] via the 3x3 normal
-    equations and a closed-form adjugate inverse. Batched `eigh` on [N,4,4]
-    lowers to a sequential per-matrix loop on TPU — measured 3.35 ms for
-    N=1024 (the entire triangulation budget) vs ~0.1 ms for this form.
-    Only points at infinity (w ~ 0) lose accuracy, and those fail the
+    equations and a closed-form adjugate inverse (elementwise math that
+    fuses into one kernel, where a batched `eigh` on [N,4,4] is a
+    per-matrix solver loop). Only points at infinity (w ~ 0) lose accuracy, and those fail the
     caller's cheirality/chi2/scale gates anyway; near-singular systems
     (parallel rays) return a behind-camera sentinel that fails cheirality.
     """
@@ -55,7 +53,7 @@ def triangulate_dlt(
     c = A[..., :, 3]
     H = jnp.swapaxes(B, -1, -2) @ B                      # [..., 3, 3]
     g = jnp.einsum("...ij,...i->...j", B, c)             # [..., 3]
-    # closed-form 3x3 inverse via the adjugate (pure elementwise VPU math)
+    # closed-form 3x3 inverse via the adjugate (pure elementwise math)
     a, b_, cc = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     d, e, f = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
     gg, hh, i = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]

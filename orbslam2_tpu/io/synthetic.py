@@ -565,3 +565,44 @@ def default_sequence(
     else:
         raise ValueError(kind)
     return SyntheticSequence(world=world, poses=poses, cam=cam)
+
+
+def pose_problem(rng, n=1024, n_real=700, noise=0.5, n_out=80, stereo_frac=0.6,
+                 cam: Optional[CameraConfig] = None, xi_true=None):
+    """A pose-only optimization problem with known truth: `n` observation
+    slots of which the first `n_real` are real (a `stereo_frac` share with
+    a right-image coordinate), pixel noise `noise`, `n_out` gross outliers,
+    and NaN measurements in the padded slots (they must not leak through
+    the mask). The true pose is exp(`xi_true`) (default: a small motion
+    from the identity); points are drawn 4-12 m in front of that camera.
+    Returns (T_true [4, 4], PoseObservations)."""
+    import jax.numpy as jnp
+
+    from orbslam2_tpu.geometry import camera, se3
+    from orbslam2_tpu.solvers.pose_opt import PoseObservations
+
+    cam = cam or CameraConfig(fx=480.0, fy=480.0, cx=319.5, cy=239.5, bf=48.0)
+    K = camera.Intrinsics.from_config(cam)
+    pc = np.c_[
+        rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(4, 12, n)
+    ].astype(np.float32)
+    if xi_true is None:
+        xi_true = [0.1, -0.05, 0.2, 0.02, -0.03, 0.01]
+    T_true = se3.exp_se3(jnp.asarray(xi_true, jnp.float32))
+    pw = np.asarray(se3.apply(se3.inverse(T_true), jnp.asarray(pc)))
+    uvr = camera.project_stereo(se3.apply(T_true, jnp.asarray(pw)), K)
+    uv = np.asarray(uvr[:, :2]) + rng.normal(0, noise, (n, 2))
+    ur = np.asarray(uvr[:, 2]) + rng.normal(0, noise, n)
+    ur = np.where(rng.random(n) < stereo_frac, ur, -1.0).astype(np.float32)
+    out_idx = rng.choice(n_real, n_out, replace=False)
+    uv[out_idx] += rng.normal(0, 30, (n_out, 2))
+    mask = np.arange(n) < n_real
+    uv[~mask] = np.nan
+    obs = PoseObservations(
+        pw=jnp.asarray(pw),
+        uv=jnp.asarray(uv.astype(np.float32)),
+        ur=jnp.asarray(ur),
+        inv_sigma2=jnp.ones(n),
+        mask=jnp.asarray(mask),
+    )
+    return T_true, obs

@@ -1,6 +1,6 @@
 // Native dataset IO: PNG/PGM decoding + threaded prefetching.
 //
-// The reference's runtime is all C++ (SURVEY.md §2); in the TPU build the
+// The reference's runtime is all C++ (SURVEY.md §2); in this build the
 // compute path is JAX/XLA, and this library is the native runtime piece
 // around it: it decodes dataset images (TUM/KITTI/EuRoC PNGs, PGM/PPM)
 // off the Python thread and prefetches frames ahead of the SLAM loop so

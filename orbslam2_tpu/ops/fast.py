@@ -1,8 +1,8 @@
 """FAST-9/16 corner detection as a whole-image vectorized kernel.
 
-TPU-native replacement for the per-30x30-cell OpenCV `FAST` calls in the
+Dense replacement for the per-30x30-cell OpenCV `FAST` calls in the
 reference (reference src/ORBextractor.cc:853-861). Instead of looping over
-cells with a retry threshold, we score EVERY pixel in one dense VPU pass:
+cells with a retry threshold, we score EVERY pixel in one dense pass:
 
 * the 16 Bresenham-circle neighbors become 16 shifted image views;
 * the "contiguous arc of >= 9 brighter/darker" test becomes bit tricks on a
@@ -132,8 +132,7 @@ def detect_stack(
 
     `images` is [L, Hc, Wc] with each level's pixels placed at the origin
     and zeros elsewhere; `shapes` is the static per-level (H, W). One
-    batched VPU chain replaces L sequential per-level FAST programs — on a
-    remote-dispatch TPU the sequential chains dominated extraction.
+    batched chain replaces L sequential per-level FAST programs.
 
     Exact vs the per-level path: FAST reads at most 3 px around a pixel and
     NMS 1 px, while the border mask keeps every survivor >= `border`

@@ -3,9 +3,10 @@
 Replaces the reference's SWAR popcount `ORBmatcher::DescriptorDistance`
 (reference src/ORBmatcher.cc:46-63) with batched XOR+popcount producing
 whole [N, M] distance matrices in one pass — brute-force dense matching is
-the TPU-idiomatic substitute for the reference's grid/BoW candidate
-pruning, because the VPU eats the full matrix faster than the host could
-prune it.
+the accelerator's substitute for the reference's grid/BoW candidate
+pruning, because the device computes the full matrix faster than the host
+could prune it. `distance_matrix` is what every matcher uses: XLA fuses
+the XOR, popcount and 8-word sum into one loop.
 
 Descriptors are [*, 8] uint32 (256 bits).
 """
@@ -35,26 +36,3 @@ def distance_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """All-pairs Hamming: a [N, 8], b [M, 8] -> [N, M] int32 (0..256)."""
     x = jnp.bitwise_xor(a[:, None, :], b[None, :, :])
     return jnp.sum(popcount_u32(x), axis=-1)
-
-
-def unpack_bits(desc: jnp.ndarray) -> jnp.ndarray:
-    """[..., 8] uint32 -> [..., 256] {0,1} uint8 (for matmul-based scoring)."""
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    bits = (desc[..., :, None] >> shifts) & jnp.uint32(1)
-    return bits.reshape(*desc.shape[:-1], 256).astype(jnp.uint8)
-
-
-@jax.jit
-def distance_matrix_mxu(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """All-pairs Hamming via +-1 matmul on the MXU.
-
-    hamming = (256 - <sa, sb>) / 2 where s = 2*bit - 1. For large N, M this
-    rides the systolic array instead of the VPU. Exact for bf16? No —
-    accumulate in f32 (values bounded by 256 so f32 is exact).
-    """
-    sa = unpack_bits(a).astype(jnp.bfloat16) * 2 - 1
-    sb = unpack_bits(b).astype(jnp.bfloat16) * 2 - 1
-    dot = jax.lax.dot_general(
-        sa, sb, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )
-    return ((256.0 - dot) * 0.5).astype(jnp.int32)

@@ -2,11 +2,11 @@
 tests, rotation-consistency filtering, projection-guided and epipolar-guided
 search.
 
-TPU-first redesign of `ORBmatcher` (reference src/ORBmatcher.cc). The
+Dense redesign of `ORBmatcher` (reference src/ORBmatcher.cc). The
 reference prunes candidates through grid cells / BoW buckets before
-computing Hamming distances one pair at a time; on TPU we compute the FULL
-[A, B] distance matrix on the VPU/MXU and express every pruning rule as a
-mask added to it. Constants follow the reference: TH_HIGH=100, TH_LOW=50,
+computing Hamming distances one pair at a time; here the device computes
+the FULL [A, B] distance matrix and every pruning rule is a mask added to
+it. Constants follow the reference: TH_HIGH=100, TH_LOW=50,
 HISTO_LENGTH=30 (reference src/ORBmatcher.cc:37-39).
 
 All matchers return per-A best-candidate indices plus a per-B (feature)
@@ -22,7 +22,6 @@ import jax
 import jax.numpy as jnp
 
 from orbslam2_tpu.ops import hamming
-from orbslam2_tpu.ops import pallas_hamming
 
 TH_HIGH = 100
 TH_LOW = 50
@@ -110,7 +109,7 @@ def match_gated(
 ) -> MatchResult:
     """Generic dense matcher: full Hamming matrix + gate mask + ratio test
     (+ optional rotation-consistency histogram filter)."""
-    dist = pallas_hamming.distance_matrix(desc_a, desc_b)
+    dist = hamming.distance_matrix(desc_a, desc_b)
     best_idx, best, second = _masked_best2(dist, gate)
     ok = best <= max_dist
     if ratio < 1.0:
@@ -247,7 +246,7 @@ def search_brute(
     ratio: float = 0.75,
     check_rotation: bool = True,
 ) -> MatchResult:
-    """Unconstrained dense matcher — the TPU substitute for SearchByBoW
+    """Unconstrained dense matcher — the dense substitute for SearchByBoW
     (reference src/ORBmatcher.cc:552-687). The BoW bucket gating there is a
     speed trick with a mild precision benefit; the full matrix plus the
     reference's ratio 0.75 + rotation filter subsumes it."""

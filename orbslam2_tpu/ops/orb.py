@@ -1,6 +1,6 @@
 """ORB feature extraction: FAST + orientation + rotated BRIEF over a pyramid.
 
-TPU-first redesign of the reference's `ORBextractor::operator()`
+Dense, static-shape redesign of the reference's `ORBextractor::operator()`
 (reference src/ORBextractor.cc:1084-1150):
 
 * FAST runs densely over every pixel of every level (ops/fast.py) instead
@@ -63,7 +63,7 @@ _BRIEF_PATTERN = jnp.asarray(make_brief_pattern())
 
 
 class FrameFeatures(NamedTuple):
-    """Static-shape per-frame feature set (the TPU analogue of the keypoint
+    """Static-shape per-frame feature set (the fixed-size analogue of the keypoint
     vectors in reference include/Frame.h:147-160)."""
 
     xy: jnp.ndarray        # [S, 2] float32, level-0 pixel coords (distorted/raw)
@@ -122,8 +122,8 @@ def select_uniform(
         .reshape(n_cells, cell_size * cell_size)
     )
     # per-cell top-R by iterated masked max: a global top_k over H*W pixels
-    # sorts ~300k elements per level (slow on TPU); R max-pool passes over
-    # the cell tiles are pure VPU reductions. R covers the budget even if
+    # sorts ~300k elements per level; R max-pool passes over the cell
+    # tiles are plain reductions. R covers the budget even if
     # only half the cells contain corners.
     R = n_scan if n_scan is not None else _scan_depth(n_keep, n_cells, cell_size)
     rows = jnp.arange(n_cells)
@@ -184,8 +184,7 @@ def brief_from_patches(pt: jnp.ndarray, angle: jnp.ndarray, half: int = 16) -> j
     i2 = r2[..., 1] * size + r2[..., 0]
     # Sample via a FUSED one-hot reduction instead of take_along_axis:
     # bit = (v1 < v2) = (sum_j flat[j] * (onehot(i2) - onehot(i1)) > 0).
-    # TPU gathers serialize (two takes measured 6.6 ms at N=1024); the
-    # compare-select-reduce fuses into one VPU sweep (1.6 ms) and is
+    # The compare-select-reduce fuses into one sweep with no gather, and is
     # EXACT — f32 subtraction of two exact values preserves the sign.
     iota = jnp.arange(size * size, dtype=jnp.int32)
     w = (i2[:, :, None] == iota).astype(flat.dtype) - (
@@ -231,7 +230,7 @@ def extract(image: jnp.ndarray, orb: OrbConfig) -> FrameFeatures:
         # against a fixed threshold, so camera gain/exposure drift makes
         # borderline corners flicker between frames and destabilizes
         # tracking. Rescaling to a fixed mean makes detection
-        # gain-invariant (BRIEF already is). One reduction — free on TPU.
+        # gain-invariant (BRIEF already is). One reduction.
         mean = jnp.mean(image)
         image = image * (120.0 / jnp.maximum(mean, 1.0))
     levels = pyramid.build_pyramid(image, orb)
@@ -243,10 +242,9 @@ def extract(image: jnp.ndarray, orb: OrbConfig) -> FrameFeatures:
     # stage 1: FAST detection + spatially-uniform selection. Level 0 runs
     # at native resolution; levels 1..L-1 are stacked on a shared
     # level-1-sized canvas so their FAST + per-cell selection run as ONE
-    # batched chain instead of L-1 sequential small programs (the
-    # sequential per-level chains were ~half of extraction latency on a
-    # remote-dispatch TPU). The canvas wastes ~2.3x pixels in VPU compute
-    # but the batched chain amortizes every kernel launch across levels.
+    # batched chain instead of L-1 sequential small programs. The canvas
+    # wastes ~2.3x pixels of compute but the batched chain amortizes every
+    # kernel launch across levels.
     xs_loc, xs, resps, octaves, valids = [], [], [], [], []
     if budgets[0] > 0:
         score0, strong0 = fast.detect(
@@ -328,9 +326,8 @@ def extract(image: jnp.ndarray, orb: OrbConfig) -> FrameFeatures:
     H0, W0 = levels[0].shape
     Hp, Wp = H0 + 2 * half_br, W0 + 2 * half_br
     # raw (IC angle) and blurred (BRIEF) images ride as CHANNELS of one
-    # canvas so a single gather fetches both patches per keypoint (TPU
-    # gather cost is per-slice, not per-byte; two separate gathers measured
-    # 2x the cost of this combined one). The blur for levels 1..L-1 runs
+    # canvas so a single gather fetches both patches per keypoint. The blur
+    # for levels 1..L-1 runs
     # batched on the detection stack; the 16-px canvas margin is zeros
     # (never read: keypoints sit >= edge_threshold=19 px inside their
     # level, BRIEF samples <= 13 px from the keypoint, the blur reads

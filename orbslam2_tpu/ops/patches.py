@@ -71,10 +71,8 @@ def gather_patches_stack_mc(
     """Multi-channel variant of gather_patches_stack: stack [L, Hp, Wp, C]
     -> [N, 2*half+1, 2*half+1, C].
 
-    TPU gathers pay per-slice overhead, so fetching the raw and blurred
-    canvases as channels of ONE gather costs nearly the same as one
-    single-channel gather (measured ~2.8 ms each at N=1024; two separate
-    gathers were the second-largest extract cost after BRIEF)."""
+    Fetching the raw and blurred canvases as channels of ONE gather pays
+    the per-slice gather overhead once instead of twice."""
     size = 2 * half + 1
     C = stack.shape[3]
     ix = jnp.clip(xy[:, 0].astype(jnp.int32), 0, stack.shape[2] - size)

@@ -1,6 +1,6 @@
 """Image pyramid and separable Gaussian blur.
 
-TPU-native replacement for the reference's `ComputePyramid`
+Static-shape replacement for the reference's `ComputePyramid`
 (reference src/ORBextractor.cc:1153-1180, cv::resize + copyMakeBorder) and
 the 7x7 sigma=2 `cv::GaussianBlur` (reference src/ORBextractor.cc:1130).
 All shapes are static: level sizes are computed at trace time from the
@@ -72,7 +72,7 @@ def gaussian_kernel_1d(size: int = 7, sigma: float = 2.0) -> jnp.ndarray:
 def gaussian_blur(image: jnp.ndarray, size: int = 7, sigma: float = 2.0) -> jnp.ndarray:
     """Separable Gaussian blur with reflect padding, [H, W] -> [H, W].
 
-    Two 1-D convolutions (VPU-friendly; XLA fuses the taps)."""
+    Two 1-D convolutions (XLA fuses the taps)."""
     k = gaussian_kernel_1d(size, sigma)
     half = size // 2
     x = jnp.pad(image, ((half, half), (0, 0)), mode="reflect")

@@ -1,6 +1,6 @@
 """Stereo correspondence for rectified pairs + RGB-D depth seeding.
 
-TPU-first redesign of `Frame::ComputeStereoMatches`
+Dense redesign of `Frame::ComputeStereoMatches`
 (reference src/Frame.cc:513-699): the row-bucketed coarse descriptor match
 becomes one gated dense Hamming matrix; the per-keypoint 11x11 SAD sliding
 refinement becomes a vmapped strip correlation with a parabola sub-pixel
@@ -18,7 +18,6 @@ import jax
 import jax.numpy as jnp
 
 from orbslam2_tpu.ops import hamming
-from orbslam2_tpu.ops import pallas_hamming
 from orbslam2_tpu.ops.match import _masked_best2
 
 _SAD_HALF = 5          # 11x11 window (reference w=5, src/Frame.cc:601)
@@ -96,7 +95,7 @@ def compute_stereo_matches(
     gate &= (disp >= -3.0) & (disp <= max_d)
     gate &= left_valid[:, None] & right_valid[None, :]
 
-    dist = pallas_hamming.distance_matrix(left_desc, right_desc)
+    dist = hamming.distance_matrix(left_desc, right_desc)
     best_idx, best, _ = _masked_best2(dist, gate)
     # left-right mutual consistency: the matched right feature's best left
     # partner must be this left feature. Occlusion silhouettes and

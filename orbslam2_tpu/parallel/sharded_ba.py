@@ -1,15 +1,15 @@
 """Distributed bundle adjustment over a device mesh.
 
 The reference has no distributed capability at all (SURVEY.md §2b); this is
-the TPU-native scale-out of the BA core for maps too large for one chip
-(BASELINE.md: distributed global BA, KITTI-00 sharded, >= 70% scaling at 2
-hosts):
+the scale-out of the BA core for maps too large for one device
+(BASELINE.md: distributed global BA, KITTI-00 sharded):
 
 * map POINTS (and their observation rows) are sharded across the mesh's
   ``points`` axis — each device eliminates its own point blocks (batched
   3x3 Schur) and builds a partial dense reduced camera system;
-* the [C, 6, C, 6] reduced system and rhs are `psum`-reduced over ICI —
-  the only collective in the loop (camera count C is small; the heavy
+* the [C, 6, C, 6] reduced system and rhs are `psum`-reduced over the
+  mesh (NVLink between the cards of one host) — the only collective in
+  the loop (camera count C is small; the heavy
   point-side work never crosses the interconnect);
 * the camera solve runs replicated on every device (cheaper than a
   broadcast for small C), point back-substitution stays local.
@@ -54,7 +54,7 @@ def _local_schur(prob: ba_core.BAProblem, K: Intrinsics, lam, use_kernel):
     det, Hinv = ba_core.inv3x3_det(Hpp_d)
     det_ok = det > 1e-12
     Hpp_inv = jnp.where(det_ok[:, None, None], Hinv, 0.0)
-    # one-hot matmul assembly (see solvers/ba.py: TPU scatters serialize)
+    # one-hot matmul assembly (see solvers/ba.py)
     hi = jax.lax.Precision.HIGHEST
     Hcc_blk = jnp.einsum("poij,po,poik->pojk", Jc, w, Jc)
     gc_blk = jnp.einsum("poij,poi->poj", Jc, Wr)

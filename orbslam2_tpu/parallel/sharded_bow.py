@@ -51,8 +51,7 @@ def sharded_query(
         ok_l = present_l & ~excl_l & (scores_l >= min_s)
         scores_ok_l = jnp.where(ok_l, scores_l, 0.0)
         # pack (ok, scores) into ONE [K/n, 2] gather: at this scale the
-        # query is collective-latency-bound (SCALING_r04: 25.4% @ 2
-        # devices with four K-float gathers), not bandwidth-bound
+        # query is collective-latency-bound, not bandwidth-bound
         g1 = jax.lax.all_gather(
             jnp.stack([ok_l.astype(jnp.float32), scores_l], axis=1),
             "kfs", axis=0, tiled=True,

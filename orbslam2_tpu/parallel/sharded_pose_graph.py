@@ -12,9 +12,8 @@ E in the thousands) the edge work is the scalable axis:
   [E, 105] payload: Ji + Jj + rw) and the block-Jacobi PCG inner solve
   runs REPLICATED with zero collectives. The round-4 design kept the
   blocks local and psum'd a [K, 7] Hessian-vector product per CG step —
-  iters * cg_iters = 1280 latency-bound collectives, 54.9% strong-scaling
-  efficiency at 2 devices (SCALING_r04); this design issues `iters`
-  collectives total. The replicated CG compute is trivial (~E * 4 * 49
+  iters * cg_iters = 1280 latency-bound collectives; this design issues
+  `iters` collectives total. The replicated CG compute is trivial (~E * 4 * 49
   FLOPs per step); the scalable axis — the Jacobian sweep — still
   distributes. (Round 2's all-replicated dense assembly anti-scaled for a
   different reason: a 49 K^2-float psum + (7K)^3 factorization.)
@@ -50,20 +49,20 @@ def sharded_optimize_pose_graph(
     Two inner-solve strategies — the right one depends on what the mesh's
     links actually are:
 
-    * ``inner="gathered"`` (default, the ICI design): ONE tiled
+    * ``inner="gathered"`` (default, for real devices): ONE tiled
       all_gather of the per-edge Jacobian blocks per GN iteration, then
       the whole PCG runs REPLICATED with zero collectives. `iters`
       collectives total; the replicated CG compute (~2·K·E·7 FLOP/step)
-      is free on real chips, which all run it concurrently. Bit-identical
+      is cheap on real devices, which all run it concurrently. Bit-identical
       to the single-device solve (the tiled gather preserves edge order).
     * ``inner="stepped"``: per-edge blocks stay LOCAL and every CG step
       psums a [K,7] Hessian-vector product — iters·cg_iters collectives,
       but the CG compute is fully distributed. On a VIRTUAL CPU mesh
       (xla_force_host_platform_device_count, one physical socket) this is
       the faster mode: collectives there are memcpys while replicated
-      compute multiplies real work on the shared CPU. SCALING_r05
-      measures both; on an actual pod slice "gathered" is the design
-      (the [K,7] psum is latency-bound at 1280 round trips).
+      compute multiplies real work on the shared CPU. On real devices
+      "gathered" is the design (the [K,7] psum is latency-bound at 1280
+      round trips).
     """
     K = prob.vertices.shape[0]
     espec = P("edges")

@@ -1,6 +1,6 @@
 """Frame construction: ORB extraction + undistortion + depth seeding.
 
-The TPU analogue of the `Frame` constructors (reference src/Frame.cc:62-241):
+The fixed-shape analogue of the `Frame` constructors (reference src/Frame.cc:62-241):
 mono/stereo/RGB-D variants produce one fixed-shape FrameData. The stereo
 path extracts left/right in one batched graph instead of the reference's
 two transient threads (src/Frame.cc:82-85).

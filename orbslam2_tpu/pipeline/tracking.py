@@ -547,10 +547,10 @@ class Tracker:
     def warmup_reloc(self, db):
         """Precompile every program `relocalize` dispatches, with the live
         map's shapes and a dummy frame. The relocalization chain is only
-        exercised when tracking is already LOST; on the remote-compile TPU
-        its ~6 fresh programs cost ~33 s (measured) in the middle of a
-        recovery attempt — pay them at session startup instead (same
-        rationale as LoopCloser.warmup_correction)."""
+        exercised when tracking is already LOST, and compiling its ~6
+        fresh programs in the middle of a recovery attempt would stall it —
+        pay them at session startup instead (same rationale as
+        LoopCloser.warmup_correction)."""
         if db is None:
             return
         from orbslam2_tpu.solvers import epnp as epnp_mod

@@ -395,7 +395,7 @@ def rebuild_observations(state: MapState) -> tuple[MapState, jnp.ndarray]:
     truth after bulk rebinding (loop-closure point replacement, fuse).
 
     The reference keeps MapPoint::mObservations transactionally in sync
-    (src/MapPoint.cc:108-160); after a batched rebind the cheap TPU move is
+    (src/MapPoint.cc:108-160); after a batched rebind the cheap device move is
     one global reconcile: flatten all (kf, feat, pid) bindings, sort by pid,
     rank within each pid segment, scatter the first `obs_slots` per point.
 

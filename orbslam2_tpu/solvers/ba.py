@@ -4,7 +4,7 @@ Replaces g2o's BlockSolver_6_3 + marginalized point vertices as used by
 `Optimizer::LocalBundleAdjustment` (reference src/Optimizer.cc:453-770) and
 `Optimizer::GlobalBundleAdjustment` (reference src/Optimizer.cc:40-236).
 
-TPU-first layout: observations live in a per-point padded table
+Static-shape layout: observations live in a per-point padded table
 ([P, O] slots, O = max observations per point) so that
 
 * point Hessians H_pp [P, 3, 3] and the Schur elimination are pure batched
@@ -12,7 +12,8 @@ TPU-first layout: observations live in a per-point padded table
 * the camera-camera fill-in (the Schur complement S) is built by scatter-
   adding all O x O per-point block outer products into a DENSE [C, 6, C, 6]
   reduced system — C is small (local BA: tens; global BA shards over
-  devices), so the dense solve rides the MXU instead of fighting sparsity,
+  devices), so the dense solve is one dense factorization instead of
+  fighting sparsity,
 * Levenberg-Marquardt accept/reject is branchless (jnp.where on the whole
   state), keeping the entire schedule inside one XLA program.
 
@@ -128,9 +129,8 @@ def _robust_cost(chi2, active, use_kernel, is_stereo):
 def inv3x3_det(h):
     """Batched closed-form (adjugate) 3x3 inverse. Returns (det, inv).
 
-    jnp.linalg.inv/det lower to batched LU loops that serialize on TPU —
-    measured 3.1 ms for [2048,3,3] on a v5e vs 1.4 ms for the cofactor
-    form (pure VPU elementwise). The caller guards det ~ 0."""
+    jnp.linalg.inv/det lower to batched LU solver loops; the cofactor form
+    is pure elementwise math that fuses. The caller guards det ~ 0."""
     a, b, c = h[..., 0, 0], h[..., 0, 1], h[..., 0, 2]
     d, e, f = h[..., 1, 0], h[..., 1, 1], h[..., 1, 2]
     g, hh, i = h[..., 2, 0], h[..., 2, 1], h[..., 2, 2]
@@ -161,11 +161,11 @@ _CHUNK_ELEMS = 1 << 26
 def _build_and_solve(r, Jc, Jp, w, prob: BAProblem, lam):
     """One damped GN step via Schur complement. Returns (dx_cam [C,6], dp [P,3]).
 
-    TPU note: every accumulation into the reduced camera system is expressed
-    as a one-hot MATMUL over the observation axis instead of scatter-adds —
-    TPU scatters with millions of random indices serialize (a profiled
-    3.4 s/solve became ~milliseconds), while the same reductions as
-    [C, N] @ [N, ...] contractions ride the MXU.
+    Every accumulation into the reduced camera system is expressed as a
+    one-hot MATMUL over the observation axis ([C, N] @ [N, ...]
+    contractions) instead of scatter-adds with millions of random indices.
+    Whether a segment-sum or scatter-add is cheaper on the GPU is an open
+    measurement (ROADMAP 1.6).
     """
     C = prob.cam_Tcw.shape[0]
     P, O = prob.obs_cam.shape
@@ -288,7 +288,7 @@ def _lm_steps(prob: BAProblem, K: Intrinsics, cam, pts, lam, iters: int, uk):
     residuals/Jacobians are computed to score acceptance and then carried
     into the next iteration (on accept they ARE the new linearization; on
     reject the previous terms are reused). The textbook loop evaluates
-    edges twice per iteration — ~1.3 ms per eval at [2048,16] on a v5e.
+    edges twice per iteration.
     """
     is_stereo = prob.obs_ur >= 0
 
@@ -325,7 +325,7 @@ def bundle_adjust_slice(
 ):
     """One bounded slice of LM iterations with an explicit carry.
 
-    Time-sliced global BA (the TPU-native stand-in for the reference's
+    Time-sliced global BA (the device-side stand-in for the reference's
     detached GBA thread, src/LoopClosing.cc:615,683-790): the loop closer
     dispatches one slice per tracked frame so a full-map BA never stalls
     tracking by more than one slice's device time. The carry (cam, pts,

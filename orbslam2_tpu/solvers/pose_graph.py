@@ -6,12 +6,12 @@ loop closures, the spanning tree, and strong covisibilities (weight >= 100,
 minFeat at :800), Gauss-Newton with tangent-space updates, then Sim3 -> SE3
 recovery ([R, t/s], :1000-1010) and landmark re-mapping (:1012-1039).
 
-TPU design: the edge residual e = log(S_meas_ji o S_i o S_j^-1) and its
+Design: the edge residual e = log(S_meas_ji o S_i o S_j^-1) and its
 Jacobians (forward-mode, vmapped over edges) are batched. Two inner
 solvers share that machinery:
 
-* optimize_pose_graph — dense [7K, 7K] assembly + direct solve; fastest
-  on the MXU for loop-neighbourhood sizes (K <= ~128);
+* optimize_pose_graph — dense [7K, 7K] assembly + direct solve; for
+  loop-neighbourhood sizes (K <= ~128);
 * optimize_pose_graph_pcg — matrix-free block-Jacobi preconditioned CG,
   O(E * cg_iters) per GN iteration with one-hot-matmul scatters; the
   scalable path for KITTI-length graphs and the edge-sharded distributed
@@ -161,9 +161,8 @@ def damp_and_solve(H, g, free):
 
 def incidence_onehot(edge_i, edge_j, K: int):
     """One-hot incidence matrices (A_i [K,E], A_j [K,E]): the edge->vertex
-    scatter-adds in the PCG path become matmuls on these. TPU scatters with
-    thousands of random indices serialize; one-hot matmuls ride the MXU
-    (same trick as solvers/ba.py's camera-system assembly)."""
+    scatter-adds in the PCG path become matmuls on these (same trick as
+    solvers/ba.py's camera-system assembly)."""
     rows = jnp.arange(K, dtype=edge_i.dtype)[:, None]
     Ai = (edge_i[None, :] == rows).astype(jnp.float32)
     Aj = (edge_j[None, :] == rows).astype(jnp.float32)
@@ -207,7 +206,7 @@ def pcg_solve(Ji, Jj, edge_i, edge_j, Ai, Aj, D, g, free, cg_iters: int,
               reduce_fn=None):
     """Solve H dx = -g by preconditioned CG without forming H. Ai/Aj are
     the one-hot incidence matrices (incidence_onehot) used for the
-    edge->vertex scatter (a matmul; TPU scatters serialize); the
+    edge->vertex scatter (a matmul instead of a scatter-add); the
     vertex->edge side stays an indexed gather (cheap everywhere).
     `reduce_fn` sums partial [K,7] products across an edge-sharded mesh
     (psum inside shard_map); None on a single device. Returns dx [K,7]."""

@@ -8,9 +8,12 @@ reprojection edges with per-octave information, Huber kernels
 each round and the kernel dropped for the last two rounds
 (src/Optimizer.cc:262-268, 366-444).
 
-TPU design: all observation slots are fixed-size masked arrays; each
+Design: all observation slots are fixed-size masked arrays; each
 iteration builds the 6x6 normal system with one batched Jacobian product
-and solves on-chip. The whole schedule jits to a single XLA program.
+and solves on the device. The whole schedule jits to a single XLA program.
+On the GPU the frame program calls the fused one-kernel version of this
+schedule (solvers/pallas_pose_opt.py); this is the reference it is tested
+against and the path on the CPU.
 """
 
 from __future__ import annotations
@@ -91,11 +94,11 @@ def _chi2(r, inv_sigma2, is_stereo):
 def solve6_spd(H, b):
     """Solve H x = b for a damped-SPD 6x6 via fully unrolled Cholesky.
 
-    jnp.linalg.solve lowers to pivoted LU whose sequential control flow
-    costs real latency on TPU; pose optimization runs ~80 GN iterations
-    per frame, each with one 6x6 solve, so the unrolled scalar form (21
-    rsqrt/div + static triangular substitutions) is worth it. H must be
-    SPD (callers damp the diagonal)."""
+    jnp.linalg.solve lowers to pivoted LU with sequential control flow;
+    pose optimization runs tens of GN iterations per frame, each with one
+    6x6 solve, so the unrolled scalar form (21 rsqrt/div + static
+    triangular substitutions) is used. H must be SPD (callers damp the
+    diagonal)."""
     n = 6
     # Cholesky H = L L^T, unrolled
     L = [[None] * n for _ in range(n)]

@@ -8,7 +8,7 @@ camera 1, e2 = uv2 - proj(S12^-1 · X1) observed in camera 2 — robust Huber
 cut (reference :1168-1186), then 10 more iterations on the surviving set
 and a final inlier recount.
 
-TPU design: fixed-size masked pair arrays; the 7-dof tangent-space Jacobian
+Design: fixed-size masked pair arrays; the 7-dof tangent-space Jacobian
 comes from jax.jacfwd through the exact Sim3 exp map, so the whole schedule
 jits to one XLA program.
 """

@@ -2,12 +2,11 @@
 
 Replaces DBoW2 (reference include/ORBVocabulary.h, the ~1M-leaf
 branching-10 depth-6 tree loaded from a 100 MB text file at startup,
-src/System.cc:65-72). TPU-first redesign:
+src/System.cc:65-72). Dense redesign:
 
-* the hierarchical tree exists to make CPU lookups O(B*L); on TPU a FLAT
-  codebook of V binary centers is both simpler and exact — assignment is
-  one [N, V] Hamming matrix (XOR+popcount, or the +-1 matmul variant on the
-  MXU), which at N=1024, V=4096 is microseconds;
+* the hierarchical tree exists to make CPU lookups O(B*L); on the device a
+  FLAT codebook of V binary centers is both simpler and exact — assignment
+  is one [N, V] Hamming matrix (XOR+popcount, or the +-1 matmul variant);
 * the vocabulary is trained by binary k-medians (bitwise-majority centers)
   on descriptors sampled from the running session or a dataset — no
   shipped vocabulary file needed (and none is available offline);
@@ -30,7 +29,7 @@ from orbslam2_tpu.ops import hamming
 
 class Codebook(NamedTuple):
     """Two-level vocabulary: coarse cells, then per-cell fine words —
-    effective size C*F (the TPU shape of the reference's branching-10
+    effective size C*F (the dense-matmul shape of the reference's branching-10
     hierarchical DBoW2 tree, include/ORBVocabulary.h:25-31). Assignment
     stays two bounded Hamming matmuls ([N,C] then per-row [N,F]) instead
     of one [N, C*F] blowup. A flat codebook is the degenerate C=1 case."""

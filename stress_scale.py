@@ -11,23 +11,23 @@ structures the round-1 review called out as capacity-capped:
   * full observation-table + covisibility reconciliation.
 
 Prints one JSON line with wall-clock per stage and peak RSS. Run with
-JAX_PLATFORMS=cpu for a hermetic check or on the TPU chip for real timings.
+JAX_PLATFORMS=cpu for a hermetic check or on a GPU for real timings; fails
+when JAX finds no GPU unless JAX_PLATFORMS=cpu asks for the CPU.
 """
 
 import json
-import os
 import resource
 import sys
 import time
 
 
 def main():
-    os.makedirs("/root/.cache/jaxcache", exist_ok=True)
     import jax
 
-    if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jaxcache")
+    from orbslam2_tpu.utils import compile_cache, device
+
+    device.require_gpu()
+    compile_cache.enable()
     jax.config.update("jax_default_matmul_precision", "highest")
 
     import jax.numpy as jnp
@@ -162,7 +162,7 @@ def main():
             "peak_rss_gb": round(
                 resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6, 2
             ),
-            "device": str(jax.devices()[0]),
+            "device": device.device_info(),
         },
     }))
 

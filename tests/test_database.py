@@ -105,7 +105,7 @@ def test_exclusion_and_min_score_gates():
 
 
 class TestTwoLevelCodebook:
-    """Two-level (coarse x fine) vocabulary — the TPU shape of DBoW2's
+    """Two-level (coarse x fine) vocabulary — the dense-matmul shape of DBoW2's
     hierarchical tree (reference include/ORBVocabulary.h:25-31)."""
 
     def _clustered_descs(self, rng, n_clusters=40, per=64):

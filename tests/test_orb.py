@@ -128,13 +128,16 @@ class TestHamming:
         D2 = (A[:, None, :] != B[None, :, :]).sum(-1)
         np.testing.assert_array_equal(D, D2)
 
-    def test_mxu_variant_matches(self, rng):
-        a = jnp.asarray(rng.integers(0, 2**32, size=(32, 8), dtype=np.uint32))
-        b = jnp.asarray(rng.integers(0, 2**32, size=(32, 8), dtype=np.uint32))
-        np.testing.assert_array_equal(
-            np.asarray(hamming.distance_matrix(a, b)),
-            np.asarray(hamming.distance_matrix_mxu(a, b)),
-        )
+    @pytest.mark.parametrize("n,m", [(256, 256), (100, 300), (1024, 4096)])
+    def test_matcher_distance_matches_bitcount(self, rng, n, m):
+        """The distance the matchers use, exact against a numpy bit count."""
+        a = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
+        b = rng.integers(0, 2**32, size=(m, 8), dtype=np.uint32)
+        want = np.unpackbits(
+            np.bitwise_xor(a[:, None, :], b[None, :, :]).view(np.uint8), axis=-1
+        ).sum(-1)
+        got = np.asarray(hamming.distance_matrix(jnp.asarray(a), jnp.asarray(b)))
+        np.testing.assert_array_equal(got, want)
 
 
 class TestSelection:

@@ -13,12 +13,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 
 def main():
-    import jax
-    if os.environ.get("JAX_PLATFORMS") == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-    os.makedirs("/root/.cache/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from orbslam2_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from orbslam2_tpu.config import (CameraConfig, MapConfig, OrbConfig,
                                      SlamConfig, Sensor, SolverConfig,

@@ -40,9 +40,9 @@ def main():
         os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jaxcache")
+    from orbslam2_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     import jax.numpy as jnp
     import numpy as np

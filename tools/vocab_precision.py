@@ -24,12 +24,9 @@ TRUE_RADIUS = 1.0  # m between camera centres for a "true" revisit pair
 
 
 def main():
-    import jax
-    if os.environ.get("JAX_PLATFORMS") == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-    os.makedirs("/root/.cache/jaxcache", exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from orbslam2_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from orbslam2_tpu.config import (CameraConfig, MapConfig, OrbConfig,
                                      SlamConfig, Sensor, TrackingConfig)
